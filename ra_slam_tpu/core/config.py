@@ -17,8 +17,6 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional
 
-import yaml
-
 
 @dataclass(frozen=True)
 class CameraConfig:
@@ -206,6 +204,8 @@ def load_yaml_config(path: str) -> SystemConfig:
     Accepts both flat reference keys (`Camera.fx`, `depthmap_factor`,
     `tsdf.width`) and nested native keys (`tsdf: {voxel_size: ...}`).
     """
+    import yaml
+
     with open(path) as f:
         node = yaml.safe_load(f) or {}
 

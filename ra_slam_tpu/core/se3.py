@@ -7,8 +7,7 @@ by the native tracking and bundle-adjustment solvers (the reference
 outsources those to OpenVSLAM/g2o).
 
 Representation: rotation matrix ``R`` ([..., 3, 3]) + translation ``t``
-([..., 3]). Matrices compose/apply via matmul (MXU-friendly and trivially
-batchable); quaternion helpers are provided for compact storage and
+([..., 3]). Matrices compose/apply via matmul (trivially batchable); quaternion helpers are provided for compact storage and
 interpolation (pose buffer, `/root/reference/utils/rotation_math/pose_manager.cc`).
 
 Conventions: ``T = SE3(R, t)`` maps points ``x_world -> R @ x + t``. For a
@@ -26,9 +25,10 @@ import jax.numpy as jnp
 
 _EPS = 1e-8
 
-# Small 3x3 geometry matmuls must stay exact float32 on TPU: the MXU's
-# default bf16 precision costs ~1e-2 relative error, which is fatal for
-# pose chains. Negligible cost at these shapes.
+# Small 3x3 geometry matmuls must stay exact float32: at default
+# precision an accelerator may multiply float32 in bf16 passes or TF32
+# (~1e-3 relative error or worse), which is fatal for pose chains.
+# Negligible cost at these shapes.
 _HIGH = jax.lax.Precision.HIGHEST
 
 

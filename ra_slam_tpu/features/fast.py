@@ -2,7 +2,7 @@
 
 The reference consumes OpenVSLAM's per-cell FAST with a two-threshold
 fallback (SURVEY.md §2.8: ini 20 / min 7). GPU FAST walks the 16-pixel
-Bresenham circle per thread with early exits; on TPU we instead build 16
+Bresenham circle per thread with early exits; here we instead build 16
 *shifted copies* of the whole image and evaluate every pixel's circle
 simultaneously — dense vector ops, no divergence, one pass.
 

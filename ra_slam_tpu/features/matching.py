@@ -1,20 +1,22 @@
 """Binary descriptor matching.
 
 The reference outsources matching to OpenVSLAM (reprojection search +
-Hamming tests) and loop retrieval to DBoW2 (SURVEY.md §2.8). On TPU the
-natural formulation is *dense*: the full Hamming distance matrix between
-two descriptor sets via the MXU. Unpacking 256-bit descriptors to ±1
-vectors turns Hamming distance into a matmul:
+Hamming tests) and loop retrieval to DBoW2 (SURVEY.md §2.8). Here the
+formulation is *dense*: the full Hamming distance matrix between two
+descriptor sets. Unpacking 256-bit descriptors to ±1 vectors turns
+Hamming distance into a matmul:
 
     hamming(a, b) = (256 - <±1(a), ±1(b)>) / 2
 
-A 1000x256x1000 bf16 matmul is ~0.5 MFLOP — effectively free — and it
+which runs on the tensor cores in bf16 (exact for ±1 operands), and it
 replaces both brute-force matching *and* the bag-of-words shortlist
 (loop-closure retrieval = top-k over the same matrix against the
-keyframe database).
+keyframe database). On an H100 (400 W limit) at 1000 x 20000 it takes
+122 us, against 209 us for XOR + popcount and 131 us for a Pallas
+XOR + popcount kernel.
 
 `hamming_matrix_popcount` (XOR + population_count) is kept as the exact
-integer path for verification and small queries.
+integer reference.
 """
 
 from __future__ import annotations
@@ -35,18 +37,12 @@ def unpack_pm1(desc: jax.Array) -> jax.Array:
 
 
 def hamming_matrix(desc_a: jax.Array, desc_b: jax.Array) -> jax.Array:
-    """Full Hamming distance matrix [Ka, Kb] float32.
-
-    On TPU: the Pallas XOR+popcount kernel on packed words (exact, no
-    32x unpack traffic — `ops/hamming.py`). Elsewhere: the ±1 matmul
-    formulation."""
-    if jax.default_backend() == "tpu":
-        from ra_slam_tpu.ops.hamming import hamming_matrix_pallas
-
-        return hamming_matrix_pallas(desc_a, desc_b).astype(jnp.float32)
-    a = unpack_pm1(desc_a)
-    b = unpack_pm1(desc_b)
-    dot = jnp.matmul(a, b.T, precision=jax.lax.Precision.HIGHEST)
+    """Full Hamming distance matrix [Ka, Kb] float32: the ±1 matmul in
+    bf16 with float32 accumulation. Exact: ±1 is exact in bf16 and
+    every partial sum is an integer of magnitude <= 256."""
+    a = unpack_pm1(desc_a).astype(jnp.bfloat16)
+    b = unpack_pm1(desc_b).astype(jnp.bfloat16)
+    dot = jnp.matmul(a, b.T, preferred_element_type=jnp.float32)
     return (NUM_PAIRS - dot) * 0.5
 
 

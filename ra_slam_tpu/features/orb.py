@@ -2,13 +2,14 @@
 
 Replaces the capability the reference outsources to OpenVSLAM's ORB
 extractor (SURVEY.md §2.8: pyramid FAST + intensity-centroid orientation
-+ rotated BRIEF, 1000 kps / 8 levels / scale 1.2). TPU formulation:
++ rotated BRIEF, 1000 kps / 8 levels / scale 1.2). Tiled formulation:
 each keypoint fetches ONE 48x48 tile of the blurred level image (row
 gather on a stride-8 tile grid — `_feat_tiles`), and both the
 orientation centroid and all 512 rotated BRIEF samples resolve inside
-that tile on the MXU (`_patch_features`): flat per-element image
-gathers cost ~10 ns each on this TPU and were ~12 of the 14 ms VGA
-detect. The standalone `orientation`/`orb_descriptors` entry points
+that tile with bf16 one-hot matmuls (`_patch_features`) instead of
+per-element image gathers (a form chosen where those gathers
+dominated detect; not yet measured against a direct gather on a
+GPU). The standalone `orientation`/`orb_descriptors` entry points
 keep the batched-gather formulation for reference/testing.
 
 The 256-pair sampling pattern is generated from a fixed-seed isotropic
@@ -68,14 +69,12 @@ def _pattern() -> np.ndarray:
 
 # --- tiled patch machinery -------------------------------------------------
 #
-# The per-keypoint stages (orientation + steered BRIEF) used to read the
-# image with flat element gathers: ~709 circle pixels + 512 pattern
-# pixels per keypoint at ~10 ns/element on this TPU = ~12 ms of the
-# 14 ms VGA detect. Same cure as the TSDF integrate kernel
+# The per-keypoint stages (orientation + steered BRIEF) read ~709 circle
+# pixels + 512 pattern pixels per keypoint. As in the TSDF integrate
 # (map/voxel_map.py::_integrate_prep): pre-cut the image into
 # overlapping tiles on a stride-8 grid, fetch ONE tile per keypoint as a
-# row gather (the fast batched fetch), and resolve the per-keypoint
-# pixel lookups inside the tile on the MXU.
+# row gather, and resolve the per-keypoint pixel lookups inside the
+# tile with one-hot matmuls.
 #
 # Tile geometry: every sampled offset is bounded by the BRIEF pattern's
 # rotated reach (|offset| <= (PATCH_RADIUS-1)*sqrt(2) < 20, rounding
@@ -147,14 +146,14 @@ def _patch_features(
     the tile once the keypoint's in-tile offset (one of 8x8) is known —
     one [K, FTP^2] x [FTP^2, 128] bf16 matmul against precomputed
     moment masks (image values are ~8-bit, so bf16 products are
-    near-exact; the f32 MXU accumulator keeps the ~700-term sums at
+    near-exact; the f32 accumulator keeps the ~700-term sums at
     ~0.2% relative error -> ~2 mrad of angle noise, far below the
     keypoint-noise floor). Computed on the blurred image (the circle
     blur kernel is rotationally symmetric, so the centroid direction is
     preserved; measured match-consistency is unchanged).
 
     BRIEF: each keypoint's 512 rotated pattern points resolve inside
-    its tile with the two-step one-hot bf16 MXU contraction (exact row/
+    its tile with the two-step one-hot bf16 contraction (exact row/
     column selection; bf16 rounding of the compared *blurred* values
     only perturbs pairs that were within 0.4% of equal — bit noise well
     below descriptor Hamming tolerances).
@@ -202,7 +201,7 @@ def _patch_features(
     lu = jnp.clip(lu, 0, FTP - 1)
     lv = jnp.clip(lv, 0, FTP - 1)
 
-    # two-step one-hot resolve on the MXU: rows then columns
+    # two-step one-hot resolve: rows then columns
     patch2 = patch_bf.reshape(K, FTP, FTP)
     row_iota = jax.lax.broadcasted_iota(jnp.int32, (K, 512, FTP), 2)
     oh_v = (lv[:, :, None] == row_iota).astype(jnp.bfloat16)

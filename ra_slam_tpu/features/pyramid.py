@@ -25,8 +25,8 @@ def gaussian_blur(img: jax.Array, sigma: float = 2.0, radius: int = 3) -> jax.Ar
     x = jnp.arange(-radius, radius + 1, dtype=jnp.float32)
     k = jnp.exp(-0.5 * (x / sigma) ** 2)
     k = k / jnp.sum(k)
-    # Full f32 precision: the MXU's default bf16 contraction costs ~0.5
-    # intensity levels of noise, which shifts FAST subpixel fits by
+    # Full f32 precision: a default-precision contraction (bf16 passes
+    # or TF32) costs ~0.5 intensity levels of noise, which shifts FAST subpixel fits by
     # tenths of a pixel and measurably degrades pose accuracy.
     hi = jax.lax.Precision.HIGHEST
     pad = [(radius, radius), (0, 0)]

@@ -1,10 +1,10 @@
 """Stereo keypoint depth from rectified image pairs.
 
 The reference gets stereo depth inside OpenVSLAM's tracker (per-keypoint
-epipolar patch matching on rectified pairs; SURVEY.md §2.8). TPU-native
+epipolar patch matching on rectified pairs; SURVEY.md §2.8). Batched
 formulation: gather one left patch and one right epipolar strip per
 keypoint in a single batched gather, compute all candidate ZNCC scores
-as one [F, D] tensor contraction (VPU-friendly, no per-ray loops),
+as one [F, D] tensor contraction (no per-ray loops),
 take the arg-best with subpixel parabola refinement, and convert
 disparity to depth with fx*baseline. All shapes static.
 """
@@ -165,7 +165,7 @@ def dense_stereo_depth(
 
     The capability the reference buys from the ZED SDK
     (`/root/reference/cameras/zed.h:9-42`: SDK-computed dense depth fed
-    to the TSDF from a stereo-only rig). TPU formulation: census
+    to the TSDF from a stereo-only rig). Dense formulation: census
     transform both images, build the full [D, H, W] Hamming cost volume
     with one gather + popcount, box-aggregate it with a single
     `reduce_window` over the volume, then winner-take-all with a

@@ -121,7 +121,7 @@ class ZedDepthCamera:
     dense census disparity, returning (stereo pair, RGB-D frame) like
     `ZED::GetStereoAndRGBDFrame` (`/root/reference/cameras/zed.h:9-42`)
     — with `features/stereo.dense_stereo_depth` playing the SDK's depth
-    engine on the TPU instead of CUDA.
+    engine on the accelerator, in JAX instead of the SDK's CUDA.
     """
 
     def __init__(

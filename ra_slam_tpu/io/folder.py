@@ -24,7 +24,6 @@ import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
-import yaml
 
 from ra_slam_tpu.core.camera import PinholeCamera
 from ra_slam_tpu.io.dataset import Frame, RGBDDataset
@@ -60,6 +59,8 @@ class FolderReader(RGBDDataset):
 
     def __init__(self, folder: str):
         self.folder = folder
+        import yaml
+
         with open(os.path.join(folder, "camera_config.yaml")) as f:
             self._cfg = yaml.safe_load(f) or {}
 
@@ -151,6 +152,7 @@ def write_folder_dataset(
     `DepthLogger`/`SemanticSLAMLogger` capture subclasses,
     `/root/reference/examples/visual_slam/run_zed_native_l515.cc:39-58`)."""
     import cv2
+    import yaml
 
     os.makedirs(folder, exist_ok=True)
     cfg = {

@@ -3,7 +3,7 @@
 Capability parity with the reference's marching-cubes pipeline
 (`/root/reference/utils/tsdf/voxel_tsdf.cu:561-845`: per-block kernel
 with 2x2x2 block-neighborhood shared memory, 256-case LUT, vertex
-ownership + two prefix-sum compactions), with a TPU-native redesign:
+ownership + two prefix-sum compactions), with a batched redesign:
 
   - **Marching tetrahedra** instead of the 256-case marching-cubes LUT:
     each cube splits into 6 tetrahedra around its main diagonal; each
@@ -253,9 +253,9 @@ def _active_order(m: VoxelMap):
 
 def _sel_columns(vals: jax.Array, ids: jax.Array) -> jax.Array:
     """out[..., k] = vals[..., ids[k]] for a TINY trailing axis, as a
-    select-sum instead of a gather: element gathers cost ~8.5 ns each on
-    this chip (take_along_axis over the 6-tet tables measured 1.1 s per
-    1024-block chunk); C compare+selects on the VPU are ~50x cheaper.
+    select-sum instead of a gather (a form chosen where element gathers
+    were the cost; whether it beats `take_along_axis` on a GPU is not
+    measured).
     vals [..., C], ids [K] (traced) -> [..., K]."""
     C = vals.shape[-1]
     out = jnp.zeros(vals.shape[:-1] + ids.shape, vals.dtype)
@@ -392,7 +392,7 @@ def _pack_edge_words(ea: jax.Array, eb: jax.Array, u: jax.Array):
     Both endpoints are corners of one lattice cube, so after choosing
     the lexicographically smaller endpoint as the base the per-axis
     delta is in {-1, 0, 1}: key = [x:19][y:19][z:19][delta:5] over 62
-    bits, split into two u32 lanes (TPU-friendly — no int64 anywhere).
+    bits, split into two u32 lanes (no int64 anywhere: x64 stays off).
     u is re-measured from the canonical base so every cube incident to
     the edge emits bit-identical words.
     """

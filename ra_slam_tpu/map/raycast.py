@@ -5,13 +5,13 @@ Capability parity with the reference's `ray_cast_kernel`
 RGBA with a semantic red-alpha overlay, and surface normals from a
 virtual camera.
 
-TPU-native redesign — **splatting, not marching**. The reference
-sphere-marches every ray with an adaptive step and per-step hash
-lookups; rays are independent so a GPU warp tolerates the divergence.
-On a TPU both the per-step *gathers* (random access into the voxel
-pool) and the long data-dependent loop are poison: a 640x480 render
-costs 200 serial steps x 3 gathers over 307k rays and minutes of
-XLA compile for the unrolled lookup chain.
+Redesign — **splatting, not marching**. The reference sphere-marches
+every ray with an adaptive step and per-step hash lookups; rays are
+independent so a GPU warp tolerates the divergence. Expressed in XLA,
+the long data-dependent loop is a problem: a 640x480 render costs 200
+serial steps x 3 gathers over 307k rays and minutes of XLA compile for
+the unrolled lookup chain. (A plain per-ray march has not been
+measured against this design on a GPU.)
 
 Here the data flow is inverted into dense, batched ops — the same move
 as the integrate kernel (map/voxel_map.py): instead of rays *searching*

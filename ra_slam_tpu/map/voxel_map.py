@@ -1,6 +1,6 @@
 """The sparse semantic TSDF voxel map: allocation, fusion, carving, export.
 
-TPU-native re-design of the reference's CUDA TSDF engine
+A JAX re-design of the reference's CUDA TSDF engine
 (`/root/reference/utils/tsdf/voxel_tsdf.cu`, `voxel_mem.cu`,
 `voxel_hash.cu`). Same behavior, different mechanics:
 
@@ -50,6 +50,7 @@ from ra_slam_tpu.map.blocks import (
     unpack_block_coords,
     voxel_offsets,
 )
+from ra_slam_tpu.map.fusion import resolve_fuse
 from ra_slam_tpu.map.hash_table import HashTable, ht_insert, ht_lookup, ht_remove
 
 class VoxelMap(NamedTuple):
@@ -61,17 +62,16 @@ class VoxelMap(NamedTuple):
     active: jax.Array  # [N] bool
     tsdf: jax.Array  # [N, 512] float32 in [-1, 1]
     weight: jax.Array  # [N, 512] float32
-    rgb: jax.Array  # [N, 3, 512] float32 in [0, 255] (channel-major:
-    #   clean [*, 512]-lane layout for the TPU kernel and row gathers)
+    rgb: jax.Array  # [N, 3, 512] float32 in [0, 255] (channel-major, so
+    #   every payload row is [*, 512] and moves as one row gather)
     prob: jax.Array  # [N, 512] float32 high-touch probability
     alloc_failures: jax.Array  # int32 scalar, cumulative
     # Explicit free-row stack (the reference keeps an atomic free-list
     # counter, voxel_mem.cu:37-41): rows free_stack[0:free_top] are the
     # free pool rows. Allocation pops from the top, carving pushes
-    # released rows back. Replaces the per-frame full-pool cumsum
-    # ranking (1.4 ms/frame at 2^17 blocks on the chip) with one small
-    # gather; active rows + stacked rows partition the pool at all
-    # times.
+    # released rows back: one small gather instead of a full-pool cumsum
+    # ranking per frame. Active rows + stacked rows partition the pool
+    # at all times.
     free_stack: jax.Array  # [N] int32 pool-row ids
     free_top: jax.Array  # int32 scalar (per-shard [1] under shard_map)
 
@@ -311,26 +311,21 @@ def _integrate_prep(
     cam_T_world: SE3,
     cfg: TsdfConfig,
 ):
-    """Shared pre-pass of the integrate kernel: project the visible
-    voxels, build the mip-tile atlas, gather one tile per block, and
-    compute the per-voxel tile index + gating.
+    """Pre-pass of `integrate`: project the visible voxels, build the
+    mip-tile atlas, fetch one tile per block, and compute the per-voxel
+    tile index + gating.
 
-    TPU mechanics of the pixel read: a flat `img[vc, uc]` gather costs
-    ~2 ns *per element* on this TPU — 8.4M voxels x 6 channels made it
-    the hottest stage (~100 ms/frame). Instead we exploit that one
-    block's 512 voxels project into a small uv footprint: pick a mip
-    level so the footprint spans <= 16 px, fetch ONE pre-built
-    overlapping 24x24 tile that is guaranteed to contain it (tiles at
-    stride 8: any 16-px window starting inside a stride-8 cell ends
-    within that cell's 24-px tile), and resolve the per-voxel lookup
-    *inside* the tile on the MXU (one-hot matmul, exact). The tile
-    fetch is a ROW gather of [NT, 6*TP^2] — the fastest batched fetch
-    on this chip; arbitrary-offset `vmap(dynamic_slice)` patches cost
-    ~1.5 us/slice and were 25 ms/frame here. (P=8/TP=16 rather than
-    P=16/TP=24: the Pallas resolve cost is linear in TP^2, and 2.2x
-    smaller tiles measured faster end-to-end; blocks spanning 9-16 px
-    read the next mip level, i.e. every other pixel — still >= their
-    8-voxel-per-axis density.)
+    One block's 512 voxels project into a small uv footprint: pick a
+    mip level so the footprint spans <= 8 px, and fetch ONE pre-built
+    overlapping 16x16 tile that is guaranteed to contain it (tiles at
+    stride 8: any 8-px window starting inside a stride-8 cell ends
+    within that cell's 16-px tile). The tile fetch is one row gather of
+    [NT, 6, TP^2]; each voxel then reads its pixel inside the tile.
+    Blocks spanning 9-16 px read the next mip level, i.e. every other
+    pixel — still >= their 8-voxel-per-axis density. (The layout was
+    chosen where a per-element image gather was the hottest stage; the
+    per-voxel sample it yields is now the map's definition of which
+    pixel a voxel sees.)
 
     Returns (patch [V,6,TP*TP], idx [V,512] i32, z_cam, d2r, gate
     [V,512] f32).
@@ -364,7 +359,7 @@ def _integrate_prep(
     # cut into overlapping TPxTP tiles at stride CELL, built from pure
     # reshapes/transposes (no gather), all levels flattened into one
     # [NT, 6, TP*TP] channel-major array fetched by row below (the
-    # layout the Pallas kernel's [6, 576] x [512, 576] resolve wants).
+    # layout the per-voxel resolve in `integrate` reads).
     img6 = jnp.concatenate(
         [
             depth_img[..., None],
@@ -406,7 +401,7 @@ def _integrate_prep(
         tile_off_l.append(n_tiles)
         ntx_l.append(ntx)
         n_tiles += nty * ntx
-    flat_tiles = jnp.concatenate(tile_arrays, axis=0)  # [NT, 6, 576]
+    flat_tiles = jnp.concatenate(tile_arrays, axis=0)  # [NT, 6, 256]
     tile_off = jnp.array(tile_off_l, dtype=jnp.int32)
     ntx_of = jnp.array(ntx_l, dtype=jnp.int32)
     level_h = jnp.array(hs_l, dtype=jnp.int32)
@@ -431,7 +426,7 @@ def _integrate_prep(
     tx = u0 >> 3  # CELL = 8
     ty = v0 >> 3
     tid = tile_off[lvl] + ty * ntx_of[lvl] + tx
-    patch = flat_tiles[tid]  # [V, 6, 576] — one row gather
+    patch = flat_tiles[tid]  # [V, 6, 256] — one row gather
 
     du = (uc >> lvl[:, None]) - (tx << 3)[:, None]  # [V, 512]
     dv = (vc >> lvl[:, None]) - (ty << 3)[:, None]
@@ -453,14 +448,6 @@ def _integrate_prep(
     return patch, idx, z_cam, d2r, gate
 
 
-def _use_pallas() -> bool:
-    import os
-
-    if os.environ.get("RA_SLAM_NO_PALLAS"):
-        return False
-    return jax.default_backend() == "tpu"
-
-
 def integrate(
     m: VoxelMap,
     vis_idx: jax.Array,
@@ -478,11 +465,10 @@ def integrate(
 
     Gather-formulated like the reference `tsdf_integrate_kernel`
     (`voxel_tsdf.cu:170-251`): every voxel of every visible block reads
-    its pixel; no write conflicts by construction. On TPU the resolve +
-    fusion runs as one Pallas kernel (`ops/tsdf_pallas.py`) that also
-    emits the space-carving min-reduction; off-TPU an equivalent
-    two-step one-hot einsum formulation is used (the two paths are
-    equality-tested).
+    its pixel from the block's image tile; no write conflicts by
+    construction. The resolve + fusion is `fusion.resolve_fuse` (a
+    Pallas kernel on the GPU); the space-carving decision is the
+    per-block min |tsdf| of the fused values.
 
     With `carve=True` the space-carving release (reference
     `space_carving_kernel` + hash `Delete`, `voxel_tsdf.cu:253-276`) is
@@ -495,74 +481,10 @@ def integrate(
         m, vis_idx, vis_mask, rgb_img, depth_img, ht_img, lt_img,
         cam, cam_T_world, cfg,
     )
-    t_old = m.tsdf[vis_idx]
-    w_old = m.weight[vis_idx]
-    rgb_old = m.rgb[vis_idx]  # [V, 3, 512] channel-major
-    p_old = m.prob[vis_idx]
-
-    if _use_pallas():
-        from ra_slam_tpu.ops.tsdf_pallas import tsdf_fuse_pallas
-
-        t_out, w_out, p_out, c_out, minabs = tsdf_fuse_pallas(
-            patch, idx, z_cam, d2r, gate,
-            t_old, w_old, p_old, rgb_old,
-            truncation=cfg.truncation,
-            max_depth=cfg.max_depth,
-            max_weight=cfg.max_weight,
-        )
-    else:
-        TP = 16
-        V = idx.shape[0]
-        patch_im = patch.reshape(V, 6, TP, TP).transpose(0, 2, 3, 1)
-        dv, du = idx // TP, idx % TP
-        oh_v = jax.nn.one_hot(dv, TP, dtype=jnp.float32)  # [V, 512, TP]
-        oh_u = jax.nn.one_hot(du, TP, dtype=jnp.float32)
-        tmp = jnp.einsum(
-            "bvp,bpqc->bvqc", oh_v, patch_im,
-            precision=jax.lax.Precision.HIGHEST,
-        )
-        vals = jnp.einsum(
-            "bvq,bvqc->bvc", oh_u, tmp,
-            precision=jax.lax.Precision.HIGHEST,
-        )  # [V, 512, 6]
-
-        d = vals[..., 0]
-        rgb_new = vals[..., 1:4].transpose(0, 2, 1)  # [V, 3, 512]
-        ht = vals[..., 4]
-        lt = vals[..., 5]
-
-        sdf = d2r * (d - z_cam)
-        update = (
-            (gate > 0)
-            & (d > 1e-6)
-            & (d <= cfg.max_depth)
-            & (sdf > -cfg.truncation)
-        )
-        tsdf_obs = jnp.minimum(1.0, sdf / cfg.truncation)
-        w_new = (1.0 - d / cfg.max_depth) * 4.0
-
-        w_comb = w_old + w_new
-        inv_w = 1.0 / jnp.maximum(w_comb, 1e-9)
-        t_new = (t_old * w_old + tsdf_obs * w_new) * inv_w
-        c_new = (rgb_old * w_old[:, None, :] + rgb_new * w_new[:, None, :]) * inv_w[:, None, :]
-        w_upd = jnp.minimum(w_comb, cfg.max_weight)
-
-        # Bayesian semantic fusion in log-odds space (equivalent to the
-        # reference's weighted geometric mean of pos/neg evidence,
-        # voxel_tsdf.cu:241-248, but without exp/log cancellation issues).
-        p_c = jnp.clip(p_old, 1e-6, 1.0 - 1e-6)
-        ht_c = jnp.clip(ht, 1e-6, 1.0)
-        lt_c = jnp.clip(lt, 1e-6, 1.0)
-        lo_old = jnp.log(p_c) - jnp.log1p(-p_c)
-        lo_obs = jnp.log(ht_c) - jnp.log(lt_c)
-        lo_new = (lo_old * w_old + lo_obs * w_new) * inv_w
-        p_new = jax.nn.sigmoid(lo_new)
-
-        t_out = jnp.where(update, t_new, t_old)
-        w_out = jnp.where(update, w_upd, w_old)
-        c_out = jnp.where(update[:, None, :], c_new, rgb_old)
-        p_out = jnp.where(update, p_new, p_old)
-        minabs = jnp.min(jnp.abs(t_out), axis=-1)
+    t_out, w_out, p_out, c_out, minabs = resolve_fuse(
+        m.tsdf, m.weight, m.prob, m.rgb, vis_idx, patch, idx, z_cam, d2r,
+        gate, cfg,
+    )
 
     table = m.table
     block_key = m.block_key

@@ -1,7 +1,19 @@
 from ra_slam_tpu.models.segmentation import (
     InferenceEngine,
-    SegmentationNet,
+    init_unet,
+    load_params,
     make_train_step,
+    save_params,
+    seg_probs,
+    unet_apply,
 )
 
-__all__ = ["InferenceEngine", "SegmentationNet", "make_train_step"]
+__all__ = [
+    "InferenceEngine",
+    "init_unet",
+    "load_params",
+    "make_train_step",
+    "save_params",
+    "seg_probs",
+    "unet_apply",
+]

@@ -7,69 +7,176 @@ RGB frame to a /32 multiple, HWC->NCHW float tensor, forward, split the
 empty model path it degrades to all-ones maps (`inference.cc:50-52`) so
 the rest of the pipeline runs without a model.
 
-TPU-native equivalent: a compact NHWC UNet in flax (bfloat16 compute,
-fp32 params — MXU-friendly convs), a jitted `InferenceEngine` facade
-with identical resize/fake-mode semantics, flax-serialization
-checkpoints, and an optional optax training step (the reference ships
-no trainer; this closes that gap for users who need to fit the model).
+Equivalent here: a compact NHWC UNet in plain JAX (bfloat16 compute,
+float32 params), a jitted `InferenceEngine` facade with identical
+resize/fake-mode semantics, `.npz` checkpoints, and an optional optax
+training step (the reference ships no trainer; this closes that gap for
+users who need to fit the model).
+
+Parameters are a nested dict:
+
+    {"down0".."down{L-2}": block, "mid": block,
+     "up0".."up{L-2}": {"conv": conv, "block": block}, "head": conv}
+    block = {"conv0": conv, "norm0": norm, "conv1": conv, "norm1": norm}
+    conv  = {"w": [kh, kw, cin, cout], "b": [cout]}
+    norm  = {"scale": [c], "bias": [c]}
+
+so the widths of a checkpoint are read off its parameter shapes.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-try:
-    import flax.linen as nn
-    from flax import serialization
-except ImportError:  # pragma: no cover
-    nn = None
-    serialization = None
+COMPUTE_DTYPE = jnp.bfloat16
+GN_EPS = 1e-6
 
 
-if nn is not None:
+# ---------------------------------------------------------------------------
+# Layers
+# ---------------------------------------------------------------------------
 
-    class ConvBlock(nn.Module):
-        features: int
-        dtype: jnp.dtype = jnp.bfloat16
 
-        @nn.compact
-        def __call__(self, x):
-            for _ in range(2):
-                x = nn.Conv(self.features, (3, 3), dtype=self.dtype)(x)
-                x = nn.GroupNorm(num_groups=min(8, self.features), dtype=self.dtype)(x)
-                x = nn.relu(x)
-            return x
+def _conv(p: dict, x: jax.Array, dtype=COMPUTE_DTYPE) -> jax.Array:
+    """SAME-padded stride-1 NHWC conv; inputs, kernel and bias in `dtype`."""
+    y = jax.lax.conv_general_dilated(
+        x.astype(dtype),
+        p["w"].astype(dtype),
+        window_strides=(1, 1),
+        padding="SAME",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+    )
+    return y + p["b"].astype(dtype)
 
-    class SegmentationNet(nn.Module):
-        """Small UNet: encoder/decoder with skip connections, 2-channel
-        (high-touch, low-touch) logits at input resolution."""
 
-        widths: Sequence[int] = (32, 64, 128, 256)
-        num_classes: int = 2
-        dtype: jnp.dtype = jnp.bfloat16
+def _group_norm(p: dict, x: jax.Array, groups: int) -> jax.Array:
+    """GroupNorm with float32 statistics, output in the input dtype."""
+    n, h, w, c = x.shape
+    xf = x.astype(jnp.float32)
+    xg = xf.reshape(n, h, w, groups, c // groups)
+    mu = jnp.mean(xg, axis=(1, 2, 4))  # [n, groups]
+    mu2 = jnp.mean(xg * xg, axis=(1, 2, 4))
+    var = jnp.maximum(0.0, mu2 - mu * mu)
+    per_channel = lambda s: jnp.repeat(s, c // groups, axis=-1)[:, None, None]
+    y = (xf - per_channel(mu)) * (
+        per_channel(jax.lax.rsqrt(var + GN_EPS)) * p["scale"]
+    )
+    return (y + p["bias"]).astype(x.dtype)
 
-        @nn.compact
-        def __call__(self, x):  # [N, H, W, 3] float in [0, 1]
-            x = x.astype(self.dtype)
-            skips = []
-            for w in self.widths[:-1]:
-                x = ConvBlock(w, self.dtype)(x)
-                skips.append(x)
-                x = nn.max_pool(x, (2, 2), strides=(2, 2))
-            x = ConvBlock(self.widths[-1], self.dtype)(x)
-            for w, skip in zip(reversed(self.widths[:-1]), reversed(skips)):
-                n, h, ww, c = x.shape
-                x = jax.image.resize(x, (n, h * 2, ww * 2, c), "nearest")
-                x = nn.Conv(w, (3, 3), dtype=self.dtype)(x)
-                x = jnp.concatenate([x, skip], axis=-1)
-                x = ConvBlock(w, self.dtype)(x)
-            logits = nn.Conv(self.num_classes, (1, 1), dtype=jnp.float32)(x)
-            return logits  # [N, H, W, 2]
+
+def _max_pool2(x: jax.Array) -> jax.Array:
+    return jax.lax.reduce_window(
+        x, -jnp.inf, jax.lax.max, (1, 2, 2, 1), (1, 2, 2, 1), "VALID"
+    )
+
+
+def _block(p: dict, x: jax.Array) -> jax.Array:
+    for i in range(2):
+        x = _conv(p[f"conv{i}"], x)
+        x = _group_norm(p[f"norm{i}"], x, min(8, x.shape[-1]))
+        x = jax.nn.relu(x)
+    return x
+
+
+def unet_apply(params: dict, x: jax.Array) -> jax.Array:
+    """[N, H, W, 3] float in [0, 1] -> [N, H, W, 2] float32 logits.
+
+    Encoder/decoder with skip connections; H and W must be multiples of
+    2^(levels-1)."""
+    depth = len([k for k in params if k.startswith("down")])
+    x = x.astype(COMPUTE_DTYPE)
+    skips = []
+    for i in range(depth):
+        x = _block(params[f"down{i}"], x)
+        skips.append(x)
+        x = _max_pool2(x)
+    x = _block(params["mid"], x)
+    for i, skip in enumerate(reversed(skips)):
+        x = jnp.repeat(jnp.repeat(x, 2, axis=1), 2, axis=2)  # nearest x2
+        x = _conv(params[f"up{i}"]["conv"], x)
+        x = jnp.concatenate([x, skip], axis=-1)
+        x = _block(params[f"up{i}"]["block"], x)
+    return _conv(params["head"], x, dtype=jnp.float32)
+
+
+def unet_widths(params: dict) -> Tuple[int, ...]:
+    """Per-level channel widths, read off the parameter shapes."""
+    depth = len([k for k in params if k.startswith("down")])
+    widths = [params[f"down{i}"]["conv0"]["w"].shape[-1] for i in range(depth)]
+    return tuple(widths) + (params["mid"]["conv0"]["w"].shape[-1],)
+
+
+def init_unet(
+    key: jax.Array, widths: Sequence[int] = (32, 64, 128, 256),
+    num_classes: int = 2, in_channels: int = 3,
+) -> dict:
+    """Random float32 params: LeCun-normal kernels, zero biases, unit
+    GroupNorm scales."""
+    keys = iter(jax.random.split(key, 4 * len(widths) + 1))
+
+    def conv(k, cin, cout):
+        w = jax.random.normal(next(keys), (k, k, cin, cout), jnp.float32)
+        return {"w": w / np.sqrt(k * k * cin), "b": jnp.zeros((cout,))}
+
+    def norm(c):
+        return {"scale": jnp.ones((c,)), "bias": jnp.zeros((c,))}
+
+    def block(cin, cout):
+        return {"conv0": conv(3, cin, cout), "norm0": norm(cout),
+                "conv1": conv(3, cout, cout), "norm1": norm(cout)}
+
+    params, cin = {}, in_channels
+    for i, w in enumerate(widths[:-1]):
+        params[f"down{i}"] = block(cin, w)
+        cin = w
+    params["mid"] = block(cin, widths[-1])
+    cin = widths[-1]
+    for i, w in enumerate(reversed(widths[:-1])):
+        params[f"up{i}"] = {"conv": conv(3, cin, w), "block": block(2 * w, w)}
+        cin = w
+    params["head"] = conv(1, cin, num_classes)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints: one flat `.npz`, keys are "/"-joined dict paths
+# ---------------------------------------------------------------------------
+
+
+def save_params(path: str, params: dict) -> None:
+    flat = {}
+
+    def walk(d, prefix):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                walk(v, prefix + k + "/")
+            else:
+                flat[prefix + k] = np.asarray(v, np.float32)
+
+    walk(params, "")
+    with open(path, "wb") as f:
+        np.savez(f, **flat)
+
+
+def load_params(path: str) -> dict:
+    params: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            *parents, leaf = key.split("/")
+            d = params
+            for k in parents:
+                d = d.setdefault(k, {})
+            d[leaf] = jnp.asarray(z[key], jnp.float32)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Inference engine
+# ---------------------------------------------------------------------------
 
 
 def _pad_to_multiple(h: int, w: int, m: int = 32) -> Tuple[int, int]:
@@ -78,11 +185,19 @@ def _pad_to_multiple(h: int, w: int, m: int = 32) -> Tuple[int, int]:
     return ((h + m - 1) // m) * m, ((w + m - 1) // m) * m
 
 
+def seg_probs(params: dict, x: jax.Array) -> Tuple[jax.Array, jax.Array]:
+    """[N, H, W, 3] in [0, 1] -> (ht, lt) float32 softmax probabilities."""
+    prob = jax.nn.softmax(unet_apply(params, x), axis=-1)
+    return prob[..., 0], prob[..., 1]
+
+
 class InferenceEngine:
     """Per-frame ht/lt inference (reference `inference_engine` API).
 
     `model_path=None` -> fake mode: all-ones maps, letting the full
     pipeline run without a trained model (`inference.cc:50-52`).
+    `"__random__"` -> randomly initialised net of the given `widths`;
+    otherwise the widths come from the `.npz` checkpoint.
     """
 
     def __init__(
@@ -97,25 +212,12 @@ class InferenceEngine:
         self.height = height
         if self.fake:
             return
-        if nn is None:
-            raise RuntimeError("flax unavailable; only fake mode supported")
-        self.net = SegmentationNet(widths=tuple(widths))
-        ph, pw = _pad_to_multiple(height, width)
-        dummy = jnp.zeros((1, ph, pw, 3), jnp.float32)
-        params = self.net.init(jax.random.PRNGKey(0), dummy)
-        if model_path != "__random__":
-            with open(model_path, "rb") as f:
-                params = serialization.from_bytes(params, f.read())
-        self.params = params
-        self._forward = jax.jit(
-            functools.partial(self._apply, net=self.net)
-        )
-
-    @staticmethod
-    def _apply(params, x, *, net):
-        logits = net.apply(params, x)
-        prob = jax.nn.softmax(logits, axis=-1)
-        return prob[..., 0], prob[..., 1]  # ht, lt
+        if model_path == "__random__":
+            self.params = init_unet(jax.random.PRNGKey(0), widths)
+        else:
+            self.params = load_params(model_path)
+        self.widths = unet_widths(self.params)
+        self._forward = jax.jit(seg_probs)
 
     def infer_one(self, rgb: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """[H, W, 3] uint8/float RGB -> (ht, lt) float32 prob maps at the
@@ -142,11 +244,10 @@ class InferenceEngine:
 
     def save(self, path: str) -> None:
         assert not self.fake, "fake engine has no parameters"
-        with open(path, "wb") as f:
-            f.write(serialization.to_bytes(self.params))
+        save_params(path, self.params)
 
 
-def make_train_step(net, optimizer):
+def make_train_step(optimizer):
     """Cross-entropy training step (optax) for the segmentation net.
 
     Labels: [N, H, W] int32 in {0 (high-touch), 1 (low-touch)}, with
@@ -155,7 +256,7 @@ def make_train_step(net, optimizer):
     import optax
 
     def loss_fn(params, x, y):
-        logits = net.apply(params, x)
+        logits = unet_apply(params, x)
         mask = (y >= 0).astype(jnp.float32)
         yc = jnp.maximum(y, 0)
         ce = optax.softmax_cross_entropy_with_integer_labels(logits, yc)
@@ -200,13 +301,15 @@ def _bench(argv=None) -> dict:
     for _ in range(args.iters):
         ht, lt = eng.infer_one(rgb)
     dt = (time.perf_counter() - t0) / args.iters
+    dev = jax.devices()[0]
     out = {
         "metric": "segmentation_latency_ms",
-        "value": round(dt * 1e3, 3),
-        "fps": round(1.0 / dt, 1),
+        "value": dt * 1e3,
+        "fps": 1.0 / dt,
         "iters": args.iters,
         "shape": [args.height, args.width],
-        "backend": jax.default_backend(),
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
     }
     print(json.dumps(out))
     return out

@@ -6,7 +6,7 @@
 // (/root/reference/modules/tsdf_module.cc:88-115), and the
 // double-buffered async data logger (/root/reference/utils/data_logger.hpp).
 // This library provides the same capabilities behind a plain C ABI
-// consumed from Python via ctypes; the TPU compute path stays in JAX.
+// consumed from Python via ctypes; the device compute path stays in JAX.
 //
 //   * SensFile     — thread-safe random-access .sens reader: header parse,
 //                    frame offset index, zlib depth inflate + libjpeg color

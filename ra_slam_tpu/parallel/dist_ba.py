@@ -3,7 +3,7 @@
 The greenfield multi-device component promised in SURVEY.md §2.9: the
 reference's g2o BA is a shared-memory CPU solver; here BOTH sides of
 the normal equations are sharded across devices and the reduced camera
-system rides ICI collectives:
+system is combined by collectives:
 
   - observations are sharded by index ([N/n] per device, exactly
     balanced): every device computes residuals/Jacobians ONLY for its
@@ -127,7 +127,7 @@ def _solve_shard(
         rhs_part = gp - jnp.einsum(
             "lkab,lbc,lc->ka", U, Hinv, gl, precision=_HIGH
         )
-        S = jax.lax.psum(S_part, axis)  # <- ICI collective
+        S = jax.lax.psum(S_part, axis)  # <- the one collective
         rhs = jax.lax.psum(rhs_part, axis)
 
         prior = jnp.where(win.kf_free, damping + pose_prior, _FIX_PRIOR)

@@ -1,16 +1,16 @@
 """Multi-host (multi-process) runtime wiring.
 
 The reference is strictly single-process/single-GPU (SURVEY.md §2.9,
-§5.8); this is the greenfield DCN layer: `jax.distributed.initialize`
+§5.8); this is the greenfield multi-host layer: `jax.distributed.initialize`
 based process bootstrap, a global device mesh spanning all hosts, and
 helpers to build replicated global arrays from per-host data (each host
 decodes its own camera frames; images are replicated because they are
 tiny next to the sharded map).
 
-On TPU pods the collectives ride ICI within a slice and DCN across
-slices; the same code runs multi-process on CPU (gloo) for tests —
-which is how `tests/test_distributed.py` exercises this wiring without
-pod hardware.
+On GPUs XLA hands the collectives to NCCL (NVLink within a host, the
+network across hosts); the same code runs multi-process on CPU (gloo)
+for tests — which is how `tests/test_distributed.py` exercises this
+wiring without several hosts.
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ def initialize_distributed(
 
 
 def global_mesh(axis: str = "map", devices: Optional[Sequence] = None) -> Mesh:
-    """1-D mesh over every device of every host (ICI + DCN)."""
+    """1-D mesh over every device of every host."""
     devs = list(devices) if devices is not None else jax.devices()
     return Mesh(np.array(devs), (axis,))
 

@@ -14,12 +14,12 @@ map across devices is greenfield. Design:
   - The integrate pipeline needs **zero cross-device communication**:
     allocation filters candidate keys by ownership, and the gather-style
     integrate touches only locally-owned blocks. Only the per-frame
-    stats are `psum`-reduced (over ICI).
+    stats are `psum`-reduced.
   - Export/meshing gathers shards (all blocks are disjoint by key, so
     concatenation of per-shard exports is the global map).
 
 This is SPMD via `shard_map` over a 1-D `Mesh` axis ("map"); the same
-code runs on a virtual CPU mesh for tests and on a real TPU slice.
+code runs on a virtual CPU mesh for tests and on real GPUs.
 """
 
 from __future__ import annotations
@@ -208,7 +208,7 @@ def make_sharded_integrate_step(
 
 
 # ---------------------------------------------------------------------------
-# Sharded export: ICI halo/gather collective for meshing, raycast, dumps
+# Sharded export: halo/gather collective for meshing, raycast, dumps
 # ---------------------------------------------------------------------------
 
 
@@ -223,8 +223,9 @@ def _gather_shards_body(
     meshing and trilinear raycast read 2x2x2 block neighborhoods
     (`/root/reference/utils/tsdf/voxel_tsdf.cu:583-586`), and with
     owner-hash sharding a block's neighbors live on other shards — the
-    gather rides ICI instead of a host `device_get` of the whole pool,
-    and moves only compacted active blocks, not pool capacity.
+    gather is a device collective instead of a host `device_get` of the
+    whole pool, and moves only compacted active blocks, not pool
+    capacity.
     """
     act = m.active
     rank = jnp.cumsum(act.astype(jnp.int32)) - 1
@@ -477,7 +478,7 @@ def extract_mesh_sharded(
 ):
     """Mesh a slab-sharded map with O(local + halo) per-device memory.
 
-    One halo `ppermute` (ICI), then each shard triangulates ONLY its own
+    One halo `ppermute`, then each shard triangulates ONLY its own
     active blocks — slabs are disjoint, so concatenating the per-shard
     meshes is exactly the global mesh. The per-shard maps are DEVICE
     slices of the augmented sharded pool (each the size of one shard's

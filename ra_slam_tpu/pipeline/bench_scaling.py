@@ -8,8 +8,11 @@ asks for (target: >= 70 % at >= 2 hosts).
 Single process (n local/virtual devices):
     python -m ra_slam_tpu.pipeline.bench_scaling --devices 8
 
-Spawn a local multi-process (DCN/gloo) demo, 2 hosts x 4 devices:
+Spawn a local multi-process (gloo) demo, 2 hosts x 4 virtual devices:
     python -m ra_slam_tpu.pipeline.bench_scaling --spawn 2 --devices 4
+
+Spawn one process per GPU (each child sees only its own card):
+    python -m ra_slam_tpu.pipeline.bench_scaling --spawn 4
 
 Real multi-host: run once per host with RA_SLAM_COORDINATOR /
 RA_SLAM_NUM_PROCESSES / RA_SLAM_PROCESS_ID exported.
@@ -38,13 +41,13 @@ def _bench_mesh(mesh, cfg, frames, cam, poses, replicate) -> float:
     step = make_sharded_integrate_step(mesh, cfg, alloc_stride=2)
     args0 = [replicate(a) for a in frames[0]]
     m, stats = step(m, *args0, cam, poses[0])
-    jax.device_get(stats["num_active"])  # honest sync (see bench.py)
+    jax.block_until_ready(m)
 
     m = create_sharded_map(cfg, mesh)
     t0 = time.perf_counter()
     for fr, pose in zip(frames, poses):
         m, stats = step(m, *[replicate(a) for a in fr], cam, pose)
-    jax.device_get(stats["num_active"])
+    jax.block_until_ready(m)
     dt = time.perf_counter() - t0
     assert int(stats["alloc_failures"]) == 0
     return len(frames) / dt
@@ -68,6 +71,13 @@ def run(argv=None) -> dict:
     args = p.parse_args(argv)
 
     if args.spawn > 1:
+        # one process per card: a JAX process reserves most of every GPU
+        # it can see, so each child is shown only its own
+        # (CUDA_VISIBLE_DEVICES does nothing to the virtual-CPU children)
+        visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+        cards = visible.split(",") if visible else [str(i) for i in range(args.spawn)]
+        if len(cards) < args.spawn:
+            raise ValueError(f"--spawn {args.spawn} but only cards {cards} are visible")
         procs = []
         for pid in range(args.spawn):
             env = dict(os.environ)
@@ -75,6 +85,7 @@ def run(argv=None) -> dict:
                 RA_SLAM_COORDINATOR=args.coordinator,
                 RA_SLAM_NUM_PROCESSES=str(args.spawn),
                 RA_SLAM_PROCESS_ID=str(pid),
+                CUDA_VISIBLE_DEVICES=cards[pid],
             )
             cmd = [sys.executable, "-m", "ra_slam_tpu.pipeline.bench_scaling",
                    "--devices", str(args.devices), "--frames", str(args.frames),

@@ -1,6 +1,6 @@
 """Application facade: tracking + segmentation + dense semantic fusion.
 
-The TPU-native `DISINFSystem`
+The `DISINFSystem` equivalent
 (`/root/reference/disinfect_slam/disinfect_slam.h:27-55`): one object
 constructed from a `SystemConfig` that owns the sparse SLAM system, the
 segmentation engine, the TSDF voxel map, and the timestamped pose
@@ -60,14 +60,7 @@ class RaSlamSystem:
         segmentation_model: Optional[str] = None,
         enable_tracking: bool = True,
         alloc_stride: int = 2,
-        aot: Optional[bool] = None,
     ):
-        """`aot=True` (or env RA_SLAM_AOT=1) boots the TSDF integrate
-        step from the persistent executable cache
-        (`utils/aot_cache.py`): first-ever boot compiles (~minutes of
-        remote XLA on this rig) and persists; every boot after loads
-        the executable in ~0.1 s — the deployable cold-start path the
-        reference gets for free from CUDA's build-time compilation."""
         self.cfg = cfg
         tsdf = cfg.tsdf
         self.tsdf_cam = PinholeCamera.create(
@@ -90,21 +83,6 @@ class RaSlamSystem:
             functools.partial(integrate_frame, cfg=tsdf, alloc_stride=alloc_stride),
             donate_argnums=(0,),
         )
-        if aot is None:
-            import os
-
-            aot = os.environ.get("RA_SLAM_AOT", "0") == "1"
-        self.aot_info: dict = {}
-        if aot:
-            from ra_slam_tpu.utils.aot_cache import cached_compile
-
-            z = jnp.zeros((tsdf.height, tsdf.width), jnp.float32)
-            rgb0 = jnp.zeros((tsdf.height, tsdf.width, 3), jnp.float32)
-            self._integrate, self.aot_info = cached_compile(
-                self._integrate,
-                (self.map, rgb0, z, z, z, self.tsdf_cam, SE3.identity()),
-                extra=f"facade_integrate_v1_stride{alloc_stride}",
-            )
         # raycast output shapes depend on the virtual camera -> one jitted
         # instance per camera geometry, cached by intrinsics
         self._raycast_cache: dict = {}
@@ -184,8 +162,6 @@ class RaSlamSystem:
         """Segment + integrate one depth-camera frame
         (`disinfect_slam.cc:33-43`). `pose` (cam_T_world) overrides the
         pose-buffer query (GT-pose replay); returns integrate stats."""
-        import cv2
-
         tsdf = self.cfg.tsdf
         if pose is None:
             assert self.slam is not None, "no pose source"
@@ -201,6 +177,8 @@ class RaSlamSystem:
                 pose = self.extrinsics @ pose
 
         if rgb.shape[:2] != (tsdf.height, tsdf.width):
+            import cv2
+
             rgb = cv2.resize(np.asarray(rgb), (tsdf.width, tsdf.height))
             depth = cv2.resize(
                 np.asarray(depth), (tsdf.width, tsdf.height),

@@ -3,7 +3,7 @@
 The reference's `ImageRenderer` (`/root/reference/modules/
 renderer_module.cc`) is an OpenGL/ImGui window with mouse orbit/zoom,
 a follow-cam offset slider, and RGB/normal texture toggle, fed by
-`TSDFGrid::RayCast` through CUDA-GL interop. On a headless TPU host the
+`TSDFGrid::RayCast` through CUDA-GL interop. On a headless host the
 equivalent is this module: the same raycast op rendered along
 parameterized virtual-camera paths (orbit, follow-trajectory with an
 offset — the slider's role) and written as PNG sequences, usable from

@@ -2,7 +2,7 @@
 
 The reference outsources local/global BA to g2o inside OpenVSLAM
 (SURVEY.md §2.8; `/root/reference/INSTALL.md:36-38`). g2o is a
-pointer-graph CPU solver — the TPU formulation instead treats the whole
+pointer-graph CPU solver — this formulation instead treats the whole
 window as dense batched tensors with static shapes:
 
 - All residuals/Jacobians for every (keyframe, feature-slot) observation
@@ -11,7 +11,7 @@ window as dense batched tensors with static shapes:
 - The landmark (3x3) diagonal of the normal equations is inverted in
   batch, and the pose-landmark coupling blocks are scattered into a
   dense ``[L, W, 6, 3]`` tensor so the reduced camera system
-  ``S = H_pp - H_pl H_ll^-1 H_pl^T`` is a single einsum (MXU).
+  ``S = H_pp - H_pl H_ll^-1 H_pl^T`` is a single einsum.
 - The reduced ``[6W, 6W]`` system is solved densely (W is the local
   window, typically 4-16 keyframes) and landmark updates come from
   back-substitution.
@@ -324,14 +324,14 @@ def solve_window(
         # guard empty landmark slots (singular blocks)
         occupied = win.point_ok & (jnp.einsum("lii->l", Hll) > 1e-12)
         with jax.default_matmul_precision("highest"):
-            # TPU f32 linalg defaults to bf16 matmul passes (see
-            # pose_graph.solve_once) — keep the factorizations exact
+            # default-precision f32 linalg may run its matmuls in
+            # reduced precision — keep the factorizations exact
             Hinv = jnp.linalg.inv(
                 jnp.where(occupied[:, None, None], Hll_d, eye3)
             )
         Hinv = jnp.where(occupied[:, None, None], Hinv, 0.0)
 
-        # reduced camera system S = Hpp - U^T Hinv U  (one einsum, MXU)
+        # reduced camera system S = Hpp - U^T Hinv U  (one einsum)
         S_off = jnp.einsum(
             "lkab,lbc,ljdc->kajd", U, Hinv, U, precision=_HIGH
         )  # [W, 6, W, 6]
@@ -448,7 +448,7 @@ def global_bundle_adjustment(
 
     A single dense Schur solve over *all* keyframes would need a
     [L, K, 6, 3] coupling tensor (gigabytes at full capacity), so the
-    TPU formulation is overlapping block-Gauss-Seidel sweeps: slide a
+    formulation here is overlapping block-Gauss-Seidel sweeps: slide a
     `window`-keyframe Schur solve over the whole insertion-ordered
     range with 50% overlap, each window anchored on its oldest pose
     (already refined by the previous, overlapping window), repeated

@@ -5,7 +5,7 @@ The reference reads OpenVSLAM's keyframe/frame-statistics store through
 DBoW2 index for loop retrieval. Here: one pytree of dense arrays —
 poses, per-keyframe observations (landmark id + pixel), descriptors,
 and a mean-descriptor embedding used for loop-closure retrieval (the
-MXU replacement for the BoW inverted index; see
+matmul replacement for the BoW inverted index; see
 `features/matching.py`).
 """
 
@@ -136,7 +136,9 @@ def refresh_observations(
     """
     lm = jnp.maximum(kfs.obs_lm, 0)
     pts = lms.pos[lm]  # [K, F, 3]
-    p = jnp.einsum("kij,kfj->kfi", kfs.R, pts) + kfs.t[:, None, :]
+    p = jnp.einsum(
+        "kij,kfj->kfi", kfs.R, pts, precision=jax.lax.Precision.HIGHEST
+    ) + kfs.t[:, None, :]
     z = p[..., 2]
     ok_z = z > 1e-6
     zs = jnp.where(ok_z, z, 1.0)

@@ -2,10 +2,10 @@
 
 The reference gets loop closure from OpenVSLAM's DBoW2 vocabulary index
 plus g2o optimization (SURVEY.md §2.8: `--vocab` flags,
-`INSTALL.md:36-38`). TPU-native redesign (SURVEY.md §7.1): keyframe
+`INSTALL.md:36-38`). Redesign (SURVEY.md §7.1): keyframe
 descriptors are embedded as mean ±1 vectors so candidate retrieval is
 ONE [1, 256] x [256, K] matmul against the whole keyframe database
-(MXU-friendly; monotone in expected Hamming distance), followed by
+(monotone in expected Hamming distance), followed by
 batched mutual descriptor matching and a robust PnP solve against the
 candidate's landmark observations for geometric verification — the
 DBoW2 + RANSAC role, with fixed shapes throughout.
@@ -25,6 +25,8 @@ from ra_slam_tpu.features.matching import mutual_match, unpack_pm1
 from ra_slam_tpu.slam.keyframes import Keyframes
 from ra_slam_tpu.slam.landmarks import Landmarks
 from ra_slam_tpu.slam.pnp import motion_only_gn
+
+_HIGH = jax.lax.Precision.HIGHEST
 
 
 class LoopCandidate(NamedTuple):
@@ -50,7 +52,7 @@ def retrieve_candidate(
     (slot, score); slot = -1 when nothing clears `min_score`.
     """
     q = kfs.embed[query_slot]  # [256]
-    scores = kfs.embed @ q  # [K] — the MXU retrieval op
+    scores = jnp.matmul(kfs.embed, q, precision=_HIGH)  # [K] retrieval op
     # cosine normalization: identical appearance -> 1.0 regardless of
     # per-keyframe descriptor count/diversity
     norms = jnp.linalg.norm(kfs.embed, axis=-1)
@@ -161,7 +163,7 @@ def relocalize(
     state of `feed_*_w_feedback` (`/root/reference/modules/slam_module.cc:154-160`).
     Native redesign: the lost frame is embedded exactly like a keyframe
     (mean ±1 descriptor), retrieved against the whole keyframe database
-    with one MXU matmul (no temporal gating — any keyframe may match),
+    with one matmul (no temporal gating — any keyframe may match),
     then verified by mutual descriptor matching + robust motion-only GN
     against the candidate's landmarks. Pure and jit-able.
     """
@@ -170,7 +172,9 @@ def relocalize(
     q = jnp.sum(pm1 * w[:, None], axis=0) / jnp.maximum(jnp.sum(w), 1.0)
     norms = jnp.linalg.norm(kfs.embed, axis=-1)
     qn = jnp.maximum(jnp.linalg.norm(q), 1e-9)
-    scores = (kfs.embed @ q) / jnp.maximum(norms * qn, 1e-9)
+    scores = jnp.matmul(kfs.embed, q, precision=_HIGH) / jnp.maximum(
+        norms * qn, 1e-9
+    )
     ok = kfs.valid & (jnp.arange(kfs.capacity) < kf_counter)
     scores = jnp.where(ok, scores, -jnp.inf)
     cand = jnp.argmax(scores).astype(jnp.int32)

@@ -1,10 +1,10 @@
 """Motion-only pose estimation: batched Gauss-Newton on SE(3).
 
 The reference delegates this to OpenVSLAM's motion-only bundle
-adjustment (g2o, SURVEY.md §2.8). TPU formulation: residuals and
+adjustment (g2o, SURVEY.md §2.8). Batched formulation: residuals and
 analytic Jacobians for ALL correspondences are computed in one vmapped
 pass ([N, 2] residuals, [N, 2, 6] Jacobians), the 6x6 normal equations
-assembled with einsum (MXU), and the update applied with the SE(3) exp
+assembled with einsum, and the update applied with the SE(3) exp
 map — fixed iteration count under `lax.fori_loop`, no data-dependent
 control flow.
 
@@ -152,13 +152,14 @@ def motion_only_gn(
             g = g + jnp.einsum("ni,n->i", Jzw, rz, precision=_HIGH)
         H = H + damping * jnp.eye(6, dtype=H.dtype)
         with jax.default_matmul_precision("highest"):
-            # TPU f32 linalg defaults to bf16 passes; keep the 6x6 exact
+            # default-precision f32 linalg may use reduced-precision
+            # matmuls; keep the 6x6 exact
             dxi = -jnp.linalg.solve(H, g)
         # guard: bad conditioning -> no update
         dxi = jnp.where(jnp.all(jnp.isfinite(dxi)), dxi, jnp.zeros_like(dxi))
         return exp_se3(dxi) @ pose
 
-    # NOTE: unrolled on purpose — measured on jax 0.9 CPU/TPU, lowering
+    # NOTE: unrolled on purpose — measured on jax 0.9, lowering
     # this as a rolled while-loop under the fused step's lax.cond tree
     # ballooned compile time from ~145 s to >9 min; straight-line code
     # compiles far faster here.

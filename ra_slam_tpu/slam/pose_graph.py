@@ -3,18 +3,18 @@
 The reference delegates pose-graph optimization and post-loop map
 correction to OpenVSLAM's g2o backend (SURVEY.md §2.8; consumed through
 `openvslam::system`, `/root/reference/modules/slam_module.h:20`). This
-is the TPU-native equivalent: a batched Gauss-Newton solver over
+is the equivalent here: a batched Gauss-Newton solver over
 relative-pose edges with
 
   residual_e = log_se3( Z_ij^-1 · (T_i · T_j^-1) )      (cam_T_world T)
 
 Per-edge 6x6 Jacobians come from forward-mode AD of the left-perturbed
 residual (exact at the linearization point, vmapped over all edges —
-the batch formulation that fits the VPU), the normal system is
+the batch formulation), the normal system is
 assembled with scatter-adds into a dense [6K, 6K] matrix, gauge is
 fixed with a strong prior on node 0, and the solve is one dense
 Cholesky — for the keyframe counts of this system (<= a few hundred)
-dense beats block-sparse bookkeeping on TPU (SURVEY.md §7.3).
+dense beats block-sparse bookkeeping (SURVEY.md §7.3).
 
 Landmark correction after optimization mirrors OpenVSLAM's loop
 correction: each map point moves with its anchor keyframe,
@@ -122,11 +122,11 @@ def optimize_pose_graph(
     node_active = (jnp.arange(K) < kf_counter) & kfs.valid[:K]
 
     def solve_once(R, t):
-      # TPU: f32 linalg (Cholesky / triangular solve) lowers to blocked
-      # matmuls that default to ONE bf16 pass — with the 1e6 gauge prior
-      # the [6K, 6K] solve loses the entire correction signal (measured:
-      # loop closures applied ~zero shift on chip while converging to
-      # machine precision on CPU). Force true f32 accumulation.
+      # f32 linalg (Cholesky / triangular solve) lowers to blocked
+      # matmuls that may default to reduced precision (one bf16 pass, or
+      # TF32) — with the 1e6 gauge prior the [6K, 6K] solve then loses
+      # the entire correction signal (loop closures applied ~zero
+      # shift). Force true f32 accumulation.
       with jax.default_matmul_precision("highest"):
           Ti = SE3(R[edges.i], t[edges.i])
           Tj = SE3(R[edges.j], t[edges.j])

@@ -5,7 +5,7 @@ The per-frame tracking loop the reference outsources to OpenVSLAM's
 constant-velocity pose prediction, projective descriptor matching
 against the landmark map, motion-only Gauss-Newton, keyframe policy.
 
-TPU formulation: the match step is a dense Hamming matrix (one MXU
+Dense formulation: the match step is a dense Hamming matrix (one
 matmul) between the frame's features and ALL landmarks, gated by
 projected pixel distance — replacing OpenVSLAM's per-cell reprojection
 search with a single batched op. Everything is static-shape and jit-able
@@ -141,9 +141,6 @@ def match_frame_to_map(
 
     Returns (lm_idx [F] int32, valid [F] bool).
     """
-    # packed XOR+popcount Hamming matrix — on TPU this is the Pallas
-    # kernel (`ops/hamming.py`), avoiding the 32x unpack traffic of the
-    # ±1-matmul formulation
     dist = hamming_matrix(kp.desc, lms.desc)  # [F, M] float32
     return _gated_match(
         dist, kp, lms, pose_pred, cam, tcfg, tcfg.match_radius, kf_counter

@@ -1,32 +1,36 @@
 """Train the segmentation UNet on the synthetic labeled scene and score
-it — 2D and through the full fusion pipeline (SEMANTIC_r05.json).
+it — 2D and through the full fusion pipeline.
 
-The round-4 gap: the semantic net had a latency CLI but never an IoU
-artifact with REAL weights in the measured loop (random weights make
-IoU meaningless; the reference evaluates semantic maps against GT,
-`/root/reference/python_utils/scannet_eval/scanneteval.py:94-146`).
+Random weights make IoU meaningless, and the reference evaluates
+semantic maps against GT (its
+`python_utils/scannet_eval/scanneteval.py:94-146`).
 The synthetic box room has exact semantic ground truth (the +x wall and
 a subset of clutter boxes are high-touch — `io/synthetic.py:25-29`), so:
 
-  1. train SegmentationNet on orbit frames (labels = GT ht maps),
+  1. train the UNet on orbit frames (labels = GT ht maps),
   2. score held-out-frame 2D IoU (prob > 0.5, both classes),
   3. fuse TWO maps with identical GT poses — one fed the NET's ht/lt,
      one fed the GT maps — and score voxel-level high-touch IoU over
      surface voxels (|tsdf| < 0.1, p_cutoff 0.5: the reference's
      thresholds), i.e. the net's error as the *map* sees it.
 
-Saves the trained weights to models/demo_seg.msgpack (used by tests /
-demos as a real non-fake model).
+Saves the trained weights to ra_slam_tpu/models/demo_seg.npz (used by
+tests, demos and chip_smoke.py as a real non-fake model) and the scores
+to the path given as the first argument (default `semantic.json`):
+
+    python scripts/gen_semantic.py [out.json]
 """
 
 import functools
 import json
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 import jax
 import jax.numpy as jnp
@@ -56,15 +60,14 @@ def _frames(seed, n, clutter=4):
 def main():
     import optax
 
-    from ra_slam_tpu.models.segmentation import SegmentationNet, make_train_step
+    from ra_slam_tpu.models.segmentation import (
+        init_unet, make_train_step, save_params, unet_apply,
+    )
 
-    net = SegmentationNet(widths=(16, 32, 64))
-    rng = jax.random.PRNGKey(0)
-    x0 = jnp.zeros((2, PH, W, 3), jnp.float32)
-    params = net.init(rng, x0)
+    params = init_unet(jax.random.PRNGKey(0), widths=(16, 32, 64))
     opt = optax.adam(3e-4)
     opt_state = opt.init(params)
-    step = make_train_step(net, opt)
+    step = make_train_step(opt)
 
     _, train = _frames(seed=0, n=48)
 
@@ -97,7 +100,7 @@ def main():
 
     @jax.jit
     def infer(params, x):
-        return jax.nn.softmax(net.apply(params, x), axis=-1)[..., 0]
+        return jax.nn.softmax(unet_apply(params, x), axis=-1)[..., 0]
 
     probs = np.asarray(infer(params, xt))[:, :H]  # [N, H, W] ht prob
     gt_ht = np.stack([f.ht for f in test]) > 0.5
@@ -113,7 +116,6 @@ def main():
     from ra_slam_tpu.core.config import TsdfConfig
     from ra_slam_tpu.core.se3 import SE3
     from ra_slam_tpu.map.voxel_map import create_map, integrate_frame
-    from ra_slam_tpu.utils.aot_cache import cached_compile
 
     cfg = TsdfConfig(
         voxel_size=0.02, truncation=0.12, max_depth=6.0,
@@ -123,17 +125,10 @@ def main():
     )
     ds, fuse_frames = _frames(seed=3, n=40)
     cam = ds.camera
-    jit_step = jax.jit(
+    istep = jax.jit(
         functools.partial(integrate_frame, cfg=cfg, alloc_stride=2),
         donate_argnums=(0,),
     )
-    m = create_map(cfg)
-    f0 = fuse_frames[0]
-    ex = (m, jnp.asarray(f0.rgb, jnp.float32), jnp.asarray(f0.depth),
-          jnp.asarray(f0.ht), jnp.asarray(f0.lt), cam,
-          SE3.from_matrix(jnp.asarray(f0.cam_T_world)))
-    istep, info = cached_compile(jit_step, ex, extra="gen_semantic_v1")
-    log(f"integrate ready {info}")
 
     def fuse(use_net):
         m = create_map(cfg)
@@ -148,8 +143,7 @@ def main():
             m, st = istep(m, jnp.asarray(f.rgb, jnp.float32),
                           jnp.asarray(f.depth), ht, lt, cam,
                           SE3.from_matrix(jnp.asarray(f.cam_T_world)))
-        jax.device_get(st["num_active"])
-        return m
+        return jax.block_until_ready(m)
 
     def xt_one(f):
         x = np.zeros((1, PH, W, 3), np.float32)
@@ -177,10 +171,7 @@ def main():
     log(f"voxel: IoU(ht, net vs GT-fed map) {vox_iou:.3f} acc {vox_acc:.3f} "
         f"({int(both.sum())} mutual surface voxels)")
 
-    from flax import serialization
-
-    with open("/root/repo/ra_slam_tpu/models/demo_seg.msgpack", "wb") as f:
-        f.write(serialization.to_bytes(params))
+    save_params(os.path.join(REPO, "ra_slam_tpu/models/demo_seg.npz"), params)
 
     out = {
         "description": (
@@ -200,9 +191,9 @@ def main():
         "voxel_iou_high_touch": round(float(vox_iou), 4),
         "voxel_acc": round(float(vox_acc), 4),
         "mutual_surface_voxels": int(both.sum()),
-        "weights": "ra_slam_tpu/models/demo_seg.msgpack",
+        "weights": "ra_slam_tpu/models/demo_seg.npz",
     }
-    with open("/root/repo/SEMANTIC_r05.json", "w") as f:
+    with open(sys.argv[1] if len(sys.argv) > 1 else "semantic.json", "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out))
 

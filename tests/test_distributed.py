@@ -1,4 +1,4 @@
-"""Multi-process (DCN-style) wiring: 2 processes x 4 CPU devices over
+"""Multi-process (multi-host style) wiring: 2 processes x 4 CPU devices over
 gloo, sharded fusion on the global mesh — the reference has nothing to
 mirror here (single GPU, SURVEY.md §5.8); this proves the
 `jax.distributed.initialize` path end to end without pod hardware."""

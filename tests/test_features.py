@@ -135,6 +135,30 @@ def test_hamming_matmul_equals_popcount():
     )
 
 
+@pytest.mark.parametrize("ka,kb", [(1, 1), (130, 300), (257, 1000)])
+def test_hamming_matrix_exact_at_any_size(ka, kb):
+    """The bf16 ±1 matmul is exact against XOR + popcount, including
+    all-ones / all-zeros words and sizes off any tile multiple."""
+    rng = np.random.default_rng(ka)
+    a = rng.integers(0, 2**32, (ka, 8), dtype=np.uint32)
+    b = rng.integers(0, 2**32, (kb, 8), dtype=np.uint32)
+    a[0], b[-1] = 0xFFFFFFFF, 0
+    d = jax.jit(hamming_matrix)(jnp.asarray(a), jnp.asarray(b))
+    assert d.shape == (ka, kb) and d.dtype == jnp.float32
+    np.testing.assert_array_equal(
+        np.asarray(d), np.asarray(hamming_matrix_popcount(jnp.asarray(a), jnp.asarray(b)))
+    )
+    assert float(d[0, kb - 1]) == 256.0
+
+
+def test_hamming_matrix_identity_diagonal_is_zero():
+    a = jnp.asarray(np.random.default_rng(1).integers(0, 2**32, (64, 8), dtype=np.uint32))
+    d = np.asarray(jax.jit(hamming_matrix)(a, a))
+    assert (np.diag(d) == 0).all()
+    assert (d >= 0).all() and (d <= 256).all()
+    np.testing.assert_array_equal(d, d.T)
+
+
 def test_match_shifted_image():
     img, _ = _square_image()
     img2 = jnp.roll(img, (3, 5), axis=(0, 1))

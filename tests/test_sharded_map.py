@@ -88,7 +88,7 @@ def test_sharded_matches_single_device(n_dev):
 
 @pytest.mark.slow
 def test_sharded_gather_export_mesh_raycast():
-    """The ICI gather collective replaces `device_get` of the whole
+    """The gather collective replaces `device_get` of the whole
     sharded pool: meshing and raycast on the gathered map must equal the
     single-device results (the 2x2x2 neighborhood halo the SURVEY calls
     out, `/root/reference/utils/tsdf/voxel_tsdf.cu:583-586`)."""
